@@ -1,6 +1,6 @@
-"""lz4_sgori_tpu — a TPU-native LZ4 block codec framework.
+"""lz4_sgori_tpu — a batched LZ4 block codec on the GPU.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
+Built from scratch in JAX/XLA with the capabilities of the reference
 project tllvvv/lz4-sgori (a Linux-kernel LZ4 over scatter-gather buffers plus
 a verifying proxy block device). See SURVEY.md for the layer map.
 

@@ -1,4 +1,4 @@
-"""Chunked block framing: the dense TPU analog of the reference's chunk layer.
+"""Chunked block framing: the dense device analog of the reference's chunk layer.
 
 The reference frames I/O as independent chunks, each compressed into a
 COMPRESSBOUND-sized slot with its own size (lz4e_bdev/lz4e_chunk.c:56-97,
@@ -157,19 +157,12 @@ def compress(data: bytes, block_size: int = DEFAULT_BLOCK_SIZE, *,
     """Compress a byte stream into a container via the device encoder.
 
     ``match_depth`` is the ratio knob: the number of prior occurrences
-    evaluated per position (the hash-chain-depth analog of an HC mode;
-    1 = greedy level-1 with LZ4_compress_default parity, 2-3 = the
-    kernel deep mode on TPU (best-of-3 chains, ~0.930x lz4's size),
-    >= 4 = the depth-5 chain mode (~0.917x); CPU backends serve deep
-    requests with the exhaustive XLA engine). Depth caps: TPU blocks
-    > 64 KiB run the seg_big engine, capped at depth 3, and > 64 KiB
-    non-64 KiB-multiple blocks run the greedy host splice (depth 1) —
-    both warn when the request exceeds the cap (the routing table,
-    ops/routing.py, is authoritative). ``acceleration`` is the speed
-    knob with LZ4_compress_fast semantics (greedy path only).
+    of each position's 4-byte word the encoder scores (the
+    hash-chain-depth analog of an HC mode); None means 3.
+    ``acceleration`` has LZ4_compress_fast semantics in the reference;
+    the device encoder evaluates every position and ignores it.
     ``size_dominance`` re-encodes any block on the host that came out
-    larger than LZ4_compress_default would make it (belt-and-braces for
-    non-parity engines; the greedy kernel path is byte-identical anyway).
+    larger than LZ4_compress_default would make it.
     """
     blocks = compress_to_blocks(data, block_size, verify=verify, stats=stats,
                                 match_depth=match_depth,
@@ -196,8 +189,8 @@ def compress_to_blocks(data: bytes, block_size: int = DEFAULT_BLOCK_SIZE, *,
     comp_len = np.array(comp_len)
 
     # comp_len == 0 for a nonempty block is the device encoder's failure
-    # signal (enc3 routes its convergence err flag here); re-encode on the
-    # host unconditionally so the contract holds even with verify=False
+    # signal; re-encode on the host unconditionally so the contract holds
+    # even with verify=False
     host_enc0 = native.compress if native.available() else golden.compress
     for j in np.nonzero((comp_len == 0) & (raw_len > 0))[0]:
         fixed = host_enc0(raw[j, :raw_len[j]].tobytes())

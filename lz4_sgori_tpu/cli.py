@@ -20,6 +20,7 @@ import time
 
 from . import blocks
 from . import store as S
+from .utils.compile_cache import enable_compile_cache
 
 
 def _cmd_map(args) -> int:
@@ -99,7 +100,7 @@ def _cmd_verify(args) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="lz4j", description=__doc__)
     p.add_argument("--platform", default=None, metavar="P",
-                   help="force the JAX backend (e.g. 'cpu', 'tpu'); "
+                   help="force the JAX backend (e.g. 'cpu', 'cuda'); "
                         "default: whatever the environment attached")
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -149,6 +150,7 @@ def main(argv=None) -> int:
     if args.platform:
         import jax
         jax.config.update("jax_platforms", args.platform)
+    enable_compile_cache()
     try:
         return args.fn(args)
     except (ValueError, OSError) as e:

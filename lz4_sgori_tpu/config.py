@@ -16,10 +16,8 @@ class CodecConfig:
     block_size:      independent-block framing size (4 KiB..4 MiB envelope,
                      the reference's fio sweep range).
     acceleration:    LZ4_compress_fast semantics (lz4e.h:9, skip-search
-                     scaling lz4e_compress.c:296-307): >1 widens the skip
-                     step on the greedy kernel path, trading ratio for
-                     speed with byte parity to liblz4 at every value. The
-                     exhaustive deep-match engine has no skip loop and
+                     scaling lz4e_compress.c:296-307). The device encoder
+                     evaluates every position, has no skip loop and
                      ignores it.
     verify_writes:   decode-verify every compressed block before accepting
                      it (the reference's always-on write verify,
@@ -32,10 +30,7 @@ class CodecConfig:
     block_size: int = 65536
     acceleration: int = F.ACCELERATION_DEFAULT
     # prior occurrences evaluated per position; the hash-chain-depth analog
-    # of the reference's (stubbed) HC ambitions. None = each engine's
-    # ratio-contract default (greedy level-1 with LZ4_compress_default
-    # parity on the kernel path; depth 3 on the exhaustive XLA engine);
-    # 3+ = explicit deep-match mode (impl="xla")
+    # of the reference's (stubbed) HC ambitions. None = depth 3
     match_depth: int | None = None
     verify_writes: bool = True
     max_sequences: int | None = None

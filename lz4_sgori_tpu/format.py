@@ -1,13 +1,13 @@
 """LZ4 block-format constants and bounds.
 
-This is the TPU-native analog of the reference codec's public constants
+These are the device codec's analog of the reference codec's public constants
 (reference: lz4e/include/lz4e.h:9-28,53-55 and lz4e/include/lz4e_defs.h:83-110).
 The *format contract* is what carries over from the reference — the token
 layout (4-bit literal run | 4-bit match length), LSIC length extension bytes,
 little-endian 16-bit offsets, the 64 KB window, the block termination rules,
 and the COMPRESSBOUND worst-case output size. Everything else (iterators,
 scatter-gather address codecs) was kernel-memory plumbing and intentionally
-does not exist here: TPU blocks are dense arrays.
+does not exist here: device blocks are dense arrays.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ the same block codec (src/lz4j_codec.cc) used for:
 - the fast host-side fallback encoder in the write-verify path
   (blocks.compress_to_blocks), replacing the slow pure-Python golden
   encoder when available;
-- host container IO where device round trips would waste PCIe/ICI;
+- host container IO where device round trips would waste PCIe bandwidth;
 - a third cross-implementation oracle in tests (golden == native == liblz4
   byte parity for the encoder).
 

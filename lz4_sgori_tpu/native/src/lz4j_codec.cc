@@ -4,9 +4,9 @@
 // byte-parity with LZ4_compress_default).
 //
 // Role in the framework: the reference's runtime is native kernel C; this
-// is the TPU framework's native host runtime piece — the fast CPU path for
+// is the framework's native host runtime piece — the fast CPU path for
 // container IO, the write-verify fallback encoder, and a third
-// cross-implementation oracle for tests. The TPU compute path stays
+// cross-implementation oracle for tests. The device compute path stays
 // JAX/XLA (ops/); this file is deliberately scalar C++ because the host
 // side is latency-bound, not lane-bound.
 //

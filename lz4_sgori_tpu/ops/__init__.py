@@ -1,4 +1,4 @@
-"""Device codec ops: batched LZ4 encode/decode as dense XLA/Pallas programs.
+"""Device codec ops: batched LZ4 encode/decode as dense XLA programs.
 
 The reference's codec layer (lz4e/lz4e_compress.c, lz4e/lz4e_decompress.c) is
 scalar kernel C walking scatter-gather iterators byte by byte. Here blocks are

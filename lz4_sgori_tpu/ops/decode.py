@@ -2,8 +2,8 @@
 
 The reference decoder (lz4e/lz4e_decompress.c:62-460) is a scalar loop: read
 token, LSIC literal length, copy literals, read LE16 offset, LSIC match
-length, overlap-safe match copy, repeat. A TPU decomposition cannot walk
-bytes serially, so decode is re-expressed in four data-parallel phases
+length, overlap-safe match copy, repeat. A data-parallel decomposition does
+not walk bytes serially, so decode is re-expressed in four data-parallel phases
 (SURVEY.md §7, layer 2):
 
 1. **Speculative per-position parse** — every byte position is treated as if
@@ -119,23 +119,15 @@ def _sequence_chain(nxt: jax.Array, terminal: jax.Array, s_max: int):
 
 def decompress_blocks_device(comp, comp_len, out_size: int,
                              max_sequences: int | None = None,
-                             impl: str = "auto", cost_key=None):
+                             impl: str = "auto"):
     """Batch-bucketing wrapper around the device decode: pads the block
     count to the next power of two (with valid empty blocks) so recurring
     calls hit a small set of compiled shapes, then trims.
 
-    Engine selection lives in ONE place: ``ops.routing.select_decode_engine``
-    (see its module docstring for the size-band table; pinned by
-    tests/test_routing.py). impl forces an engine: "xla",
-    "lockstep_v6", "lockstep"/"lockstep_v7", "lockstep_v8";
-    unknown names raise ValueError.
-
-    cost_key: optional int32 [num_blocks] decode-cost hint used to group
-    same-cost blocks into lockstep lanes (the encoder's per-block
-    sequence count — compress_blocks_device(return_cost=True) — measures
-    corr 0.9999 with actual decode rounds vs 0.64 for comp_len, worth
-    ~12%% throughput on mixed corpora). Falls back to comp_len sorting.
+    impl: "auto" or "xla" (the one engine); other names raise ValueError
+    (``ops.routing.check_impl``).
     """
+    routing.check_impl(impl, "decode")
     comp = jnp.asarray(comp)
     comp_len = jnp.asarray(comp_len)
     nb = comp.shape[0]
@@ -144,37 +136,8 @@ def decompress_blocks_device(comp, comp_len, out_size: int,
         comp = jnp.pad(comp, ((0, nbp - nb), (0, 0)))
         # a zero byte is a valid empty terminal block
         comp_len = jnp.pad(comp_len, (0, nbp - nb), constant_values=1)
-        if cost_key is not None:
-            cost_key = jnp.pad(jnp.asarray(cost_key, jnp.int32),
-                               (0, nbp - nb))
-    on_tpu = jax.default_backend() == "tpu"
-    engine = routing.select_decode_engine(out_size, on_tpu, impl)
-    if engine == "v8":
-        from .pallas.lockstep_v8 import decompress_blocks_lockstep_v8
-        # transfers=1: same finding as v7 (0.202 vs 0.197 GB/s at
-        # 512 KiB, bit-exact) — the second frame-select pass is cost
-        out, out_len, err = decompress_blocks_lockstep_v8(
-            comp, comp_len, out_size, sr=512, unroll=4, transfers=1,
-            sort_key=cost_key, interpret=not on_tpu)
-    elif engine == "v7":
-        from .pallas.lockstep_v7 import decompress_blocks_lockstep_v7
-        # unroll=6 measured best on v5e (0.786 vs 0.734 at u=4: optA's
-        # flush-on-demand far service amortizes deeper unrolls);
-        # transfers=1 measured 38.6 vs 41.3 ms with cost-key grouping
-        # (one frame-select pass per round is enough — the second
-        # mostly runs idle and its selects are pure cost; 3 is worse
-        # still at 47.3)
-        out, out_len, err = decompress_blocks_lockstep_v7(
-            comp, comp_len, out_size, sr=512, unroll=6, transfers=1,
-            sort_key=cost_key, interpret=not on_tpu)
-    elif engine == "v6":
-        from .pallas.lockstep_v6 import decompress_blocks_lockstep_v6
-        out, out_len, err = decompress_blocks_lockstep_v6(
-            comp, comp_len, out_size, sr=512, unroll=4,
-            sort_key=cost_key, interpret=not on_tpu)
-    else:
-        out, out_len, err = _decompress_blocks_impl(
-            comp, comp_len, out_size, max_sequences)
+    out, out_len, err = _decompress_blocks_impl(
+        comp, comp_len, out_size, max_sequences)
     if nbp != nb:
         out, out_len, err = out[:nb], out_len[:nb], err[:nb]
     return out, out_len, err

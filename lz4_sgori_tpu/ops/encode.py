@@ -3,7 +3,7 @@
 The reference compressor (lz4e/lz4e_compress.c:218-534) is a scalar greedy
 loop: hash 4 bytes, probe a single-entry hash table, extend the match
 forward (LZ4E_count) and backward ("catch up"), emit token/LSIC/literals,
-repeat. The TPU decomposition keeps the *greedy parse semantics* but
+repeat. The decomposition here keeps the *greedy parse semantics* but
 computes every ingredient for all positions at once (SURVEY.md §7 layer 3):
 
 1. **Match-candidate discovery** — instead of a racy evolving hash table,
@@ -171,33 +171,22 @@ def _backward_runs(b, prev):
 
 def compress_blocks_device(raw, raw_len, block_size: int,
                            match_depth: int | None = None,
-                           impl: str = "auto", acceleration: int = 1,
-                           return_cost: bool = False):
+                           impl: str = "auto", acceleration: int = 1):
     """Batch-bucketing wrapper around the device encode: pads the block
     count to the next power of two (with empty blocks) so recurring calls
     hit a small set of compiled shapes, then trims.
 
-    Engine selection lives in ONE place: ``ops.routing.select_encode_engine``
-    (see its module docstring for the full table; pinned by
-    tests/test_routing.py). impl forces an engine family: "xla" (the
-    portable/exhaustive program), "enc3"/"pallas" (block-per-lane
-    kernel), "seg" (segmented-lane kernel); unknown names — including
-    the retired "scalar" — raise ValueError.
+    impl: "auto" or "xla" (the one engine); other names raise ValueError
+    (``ops.routing.check_impl``).
 
-    match_depth: >= 2 on the TPU kernel path selects the deep mode
-    (best-of-3 chain candidates + one-step lazy deferral,
-    golden.compress_deep, ~0.930x LZ4_compress_default); >= 4 the
-    depth-5 chain mode (~0.917x; block-per-lane engine, <= 64 KiB
-    only). Engines that cannot honor the requested depth run their cap
-    and WARN: the seg engines cap at 3, the >64 KiB host splice at 1
-    (routing.encode_depth_cap). On the XLA engine match_depth is the
-    exhaustive lookback depth (~0.914x, orders of magnitude slower —
-    the max-ratio mode).
+    match_depth: the number of prior occurrences of each position's
+    4-byte word evaluated as match candidates. None selects depth 3.
 
     acceleration: LZ4_compress_fast semantics (skip-search scaling,
-    lz4e_compress.c:296-307); the exhaustive XLA matcher has no skip
-    loop, so it applies only to the kernel paths.
+    lz4e_compress.c:296-307). This engine evaluates every position and
+    has no skip loop, so it ignores the value and warns when it is > 1.
     """
+    routing.check_impl(impl, "encode")
     raw = jnp.asarray(raw)
     raw_len = jnp.asarray(raw_len)
     nb = raw.shape[0]
@@ -205,181 +194,15 @@ def compress_blocks_device(raw, raw_len, block_size: int,
     if nbp != nb:
         raw = jnp.pad(raw, ((0, nbp - nb), (0, 0)))
         raw_len = jnp.pad(raw_len, (0, nbp - nb))
-    on_tpu = jax.default_backend() == "tpu"
-    md = match_depth or 1
-    engine = routing.select_encode_engine(block_size, md, on_tpu, impl)
-    depth = routing.encode_depth_cap(engine, md)
-    if depth < md and engine != "xla":
+    if acceleration > 1:
         import warnings
         warnings.warn(
-            f"match_depth={md} exceeds the {engine} engine's depth cap; "
-            f"running depth {depth} (see ops/routing.py).", stacklevel=2)
-    cost = None
-    if engine == "seg_big":
-        comp, comp_len, cost = compress_blocks_seg_dispatch(
-            raw, raw_len, block_size, acceleration, depth=depth,
-            seg=routing.seg_for(block_size), return_nseq=True)
-    elif engine == "seg_splice":
-        comp, comp_len = _compress_blocks_segmented(
-            raw, raw_len, block_size, acceleration)
-    elif engine == "seg":
-        comp, comp_len, cost = compress_blocks_seg_dispatch(
-            raw, raw_len, block_size, acceleration, depth=depth,
-            return_nseq=True)
-    elif engine == "enc3":
-        # Batches above 4 lockstep groups run in slices: at higher
-        # group counts XLA's 16 MB scoped-fusion limit keeps tripping
-        # on the inter-kernel concat/slice pipelines.
-        MAXB = 512
-        if nbp > MAXB and block_size >= 16384:
-            parts = [compress_blocks_pallas_dispatch(
-                         raw[s:s + MAXB], raw_len[s:s + MAXB],
-                         block_size, acceleration, depth=depth,
-                         return_nseq=True)
-                     for s in range(0, nbp, MAXB)]
-            comp = jnp.concatenate([c for c, _, _ in parts], axis=0)
-            comp_len = jnp.concatenate([cl for _, cl, _ in parts])
-            cost = jnp.concatenate([cs for _, _, cs in parts])
-        else:
-            comp, comp_len, cost = compress_blocks_pallas_dispatch(
-                raw, raw_len, block_size, acceleration,
-                depth=depth, return_nseq=True)
-    else:
-        if acceleration > 1:
-            import warnings
-            warnings.warn(
-                f"acceleration={acceleration} applies to the greedy kernel "
-                "path; the exhaustive engine evaluates every position and "
-                "ignores it.", stacklevel=2)
-        comp, comp_len = _compress_blocks_impl(
-            raw, raw_len, block_size, 3 if match_depth is None else md)
-    if cost is None:
-        cost = comp_len
+            f"acceleration={acceleration} is ignored: the encoder evaluates "
+            "every position and has no skip loop.", stacklevel=2)
+    depth = 3 if match_depth is None else (match_depth or 1)
+    comp, comp_len = _compress_blocks_impl(raw, raw_len, block_size, depth)
     if nbp != nb:
-        comp, comp_len, cost = comp[:nb], comp_len[:nb], cost[:nb]
-    return (comp, comp_len, cost) if return_cost else (comp, comp_len)
-
-
-def _compress_blocks_segmented(raw, raw_len, block_size: int,
-                               acceleration: int = 1):
-    """TPU encode for blocks > 64 KiB: 64 KiB segments through the enc3
-    kernel, then a host splice into ONE valid LZ4 block per input block
-    (byte-exact to golden.compress_segmented; matches never cross
-    segments, so the only loss vs a single-table encode is candidates
-    whose window would span a boundary — the reference's own window is
-    64 KiB anyway, lz4e.h:53-55). Covers the fio envelope's upper half
-    (test_128k…test_4m.fio) without touching the slow XLA engine.
-
-    HOST-ONLY: the splice loop runs in numpy. Under jit/shard_map
-    tracing this cannot work — raise a clear error instead of letting
-    np.asarray produce a TracerArrayConversionError (round-4 verdict
-    weak #6). Traceable big-block encode requires a 64 KiB-multiple
-    block_size (the seg_big engine, routing.seg_for)."""
-    import numpy as np
-
-    if isinstance(raw, jax.core.Tracer):
-        raise ValueError(
-            f"block_size={block_size} (> 64 KiB, not a 64 KiB multiple) "
-            "routes to the host-side segment-splice encoder, which cannot "
-            "run under jit/shard_map tracing. Use a 64 KiB-multiple "
-            "block_size (served by the fully-traceable seg_big engine) "
-            "or call outside jit.")
-
-    from .. import golden
-    from .pallas.lockstep_enc3 import compress_blocks_lockstep_enc3
-
-    SEG = 65536
-    nb, slot = raw.shape
-    nseg = -(-block_size // SEG)
-    segslot = nseg * SEG
-    if slot < segslot:
-        raw = jnp.pad(raw, ((0, 0), (0, segslot - slot)))
-    segs = raw[:, :segslot].reshape(nb * nseg, SEG)
-    sidx = jnp.arange(nseg, dtype=jnp.int32)[None, :]
-    seg_len = jnp.clip(raw_len.astype(jnp.int32)[:, None] - sidx * SEG,
-                       0, SEG).reshape(-1)
-    comp_s, clen_s, err_s, tail_s = compress_blocks_lockstep_enc3(
-        segs, seg_len, SEG, accel=acceleration, return_tails=True)
-    comp_s = np.asarray(comp_s)
-    clen_s = np.asarray(clen_s)
-    err_s = np.asarray(err_s)
-    tail_s = np.asarray(tail_s)
-    rlen_np = np.asarray(raw_len)
-    bound = F.compress_bound(block_size)
-    out = np.zeros((nb, bound), np.uint8)
-    out_len = np.zeros(nb, np.int32)
-    for b in range(nb):
-        nsb = max(1, -(-int(rlen_np[b]) // SEG))
-        rows = range(b * nseg, b * nseg + nsb)
-        if any(err_s[r] for r in rows):
-            continue                     # comp_len 0 -> host fallback
-        streams = [comp_s[r, :clen_s[r]].tobytes() for r in rows]
-        blob = golden.splice_segments(streams, [int(tail_s[r])
-                                                for r in rows])
-        if len(blob) > bound:            # format-worst-case boundary
-            continue                     # jitter: host fallback
-        out[b, :len(blob)] = np.frombuffer(blob, np.uint8)
-        out_len[b] = len(blob)
-    return out, out_len
-
-
-def compress_blocks_seg_dispatch(raw, raw_len, block_size: int,
-                                 acceleration: int = 1, depth: int = 1,
-                                 seg: int = 4096,
-                                 return_nseq: bool = False):
-    """TPU segmented-lane engine (enc3 seg mode): blocks spread across
-    block_size/seg lanes, byte-exact to golden.compress_dense_seg.
-
-    LZ4J_ENC_MLEN=1 opts the greedy <= 64 KiB path into the wb-free
-    parse (pass-1 mlen precompute; byte-identical — see
-    docs/Performance.md round-5). Env-gated until the hardware timing
-    lands; flip to default once measured faster.
-
-    err (kernel non-convergence — a bug backstop — or an assembled
-    block past COMPRESSBOUND, the reference's limited-output condition,
-    lz4e_compress.c:358-363) folds into comp_len == 0 for the framing
-    layer's verify/fallback."""
-    import os
-
-    from .pallas.lockstep_enc3 import compress_blocks_lockstep_seg
-    mlen = (os.environ.get("LZ4J_ENC_MLEN") == "1" and depth == 1
-            and block_size <= 65536)
-    if return_nseq:
-        comp, comp_len, err, nseq = compress_blocks_lockstep_seg(
-            raw, raw_len, block_size, seg=seg, accel=acceleration,
-            depth=depth, mlen=mlen, return_nseq=True)
-        comp_len = jnp.where(err, 0, comp_len)
-        return comp, comp_len, nseq
-    comp, comp_len, err = compress_blocks_lockstep_seg(
-        raw, raw_len, block_size, seg=seg, accel=acceleration,
-        depth=depth, mlen=mlen)
-    comp_len = jnp.where(err, 0, comp_len)
-    return comp, comp_len
-
-
-def compress_blocks_pallas_dispatch(raw, raw_len, block_size: int,
-                                    acceleration: int = 1,
-                                    depth: int = 1,
-                                    return_nseq: bool = False):
-    """Indirection point for the TPU kernel path (lets tests monkeypatch
-    and keeps the lazy import in one place).
-
-    The engine is the enc3 sort-based lockstep kernel, byte-exact to
-    golden.compress_dense(hashlog=16). Its convergence err flag (a bug
-    indicator, never a data condition) folds into comp_len == 0: the
-    framing layer's decode-verify then re-encodes that block on the host
-    (blocks.py fallback), so the bit-exact contract survives even a
-    kernel defect."""
-    from .pallas.lockstep_enc3 import compress_blocks_lockstep_enc3
-    if return_nseq:
-        comp, comp_len, err, nseq = compress_blocks_lockstep_enc3(
-            raw, raw_len, block_size, accel=acceleration, depth=depth,
-            return_nseq=True)
-        comp_len = jnp.where(err, 0, comp_len)
-        return comp, comp_len, nseq
-    comp, comp_len, err = compress_blocks_lockstep_enc3(
-        raw, raw_len, block_size, accel=acceleration, depth=depth)
-    comp_len = jnp.where(err, 0, comp_len)
+        comp, comp_len = comp[:nb], comp_len[:nb]
     return comp, comp_len
 
 

@@ -1,119 +1,31 @@
-"""THE engine-routing table: one declarative map from (direction,
-backend, block size, match depth, forced impl) to a codec engine.
+"""Engine names accepted by the device codec.
 
-This module is the single source of truth for dispatch — the prose that
-used to live (and drift) in ``ops/encode.py`` / ``ops/decode.py``
-docstrings is replaced by the tables below plus a unit test
-(``tests/test_routing.py``) that pins the selections across the full fio
-block-size envelope (4 KiB - 4 MiB, test/fio_tests/test_4k.fio ..
-test_4m.fio) x depth {1,3,5} x backend {cpu,tpu}. The reference has a
-single entry point (lz4e/lz4e_compress.c:563-569); this table is the
-TPU analog: one function per direction answering "which engine".
-
-Engines (decode):
-  xla   portable dense-XLA program (every backend; the only CPU engine)
-  v6    lockstep ring engine       (TPU; envelope edges: < 16 KiB and
-                                    the 132-256 KiB band)
-  v7    lockstep hot-ring engine   (TPU; 16-128 KiB core band)
-  v8    HBM-tape engine            (TPU; 512 KiB - 4 MiB)
-
-Engines (encode):
-  xla        portable dense-XLA program (CPU; also the exhaustive
-             max-ratio deep mode on any backend via impl="xla")
-  enc3       block-per-lane lockstep kernel (TPU; < 8 KiB blocks, any
-             non-4 KiB-aligned size <= 64 KiB, and every depth-5
-             request <= 64 KiB — the dense_gaps2 tape is only wired
-             into the block-per-lane pass 1)
-  seg        segmented-lane kernel, one block across block/4096 lanes
-             (TPU; 8-64 KiB, 4 KiB-multiples, depth <= 3)
-  seg_big    segmented-lane kernel with piecewise pass-1 candidates
-             (TPU; > 64 KiB when the slot decomposes per ``seg_for``;
-             depth capped at 3 — the piecewise pass 1 carries no
-             second gaps tape)
-  seg_splice host-side standalone-segment splice (TPU; > 64 KiB,
-             non-64 KiB-multiple slots; greedy depth 1 only; NOT
-             traceable — guarded against jit, see encode.py)
+Each direction has one engine: the dense XLA program in ``ops/encode.py``
+and ``ops/decode.py``. ``impl`` accepts ``"auto"`` and ``"xla"``, which
+both select it. The names of the removed lane-lockstep Pallas engines
+raise a ``ValueError`` that says so, so a caller that forced one learns
+why instead of silently getting another engine.
 """
 
 from __future__ import annotations
 
-V7_MIN_BLOCK = 16384
-V7_MAX_BLOCK = 131072
-VMEM_MAX_BLOCK = 262144     # largest block the pure-VMEM engines hold
-
-ENCODE_IMPLS = ("auto", "xla", "enc3", "seg", "pallas")
-DECODE_IMPLS = ("auto", "xla", "lockstep", "lockstep_v6", "lockstep_v7",
-                "lockstep_v8")
+IMPLS = ("auto", "xla")
+REMOVED_ENCODE_IMPLS = ("enc3", "seg", "pallas")
+REMOVED_DECODE_IMPLS = ("lockstep", "lockstep_v6", "lockstep_v7",
+                        "lockstep_v8")
 
 
-def seg_for(block_size: int) -> int | None:
-    """Segment size for the big-block seg engine: the most lanes per
-    block (<= 128) with seg >= 4 KiB, 128-aligned; None when the slot
-    shape can't satisfy the engine's constraints (then the standalone-
-    segment splice serves it)."""
-    if block_size % 65536:
-        return None
-    for nseg in (128, 64, 32, 16, 8, 4, 2):
-        if block_size % nseg == 0:
-            seg = block_size // nseg
-            if seg % 128 == 0 and seg >= 4096:
-                return seg
-    return None
+def check_impl(impl: str, direction: str) -> None:
+    """Raise ValueError unless ``impl`` names the XLA engine.
 
-
-def select_decode_engine(out_size: int, on_tpu: bool,
-                         impl: str = "auto") -> str:
-    """Return the decode engine name: 'xla' | 'v6' | 'v7' | 'v8'."""
-    forced = {"xla": "xla", "lockstep_v6": "v6", "lockstep": "v7",
-              "lockstep_v7": "v7", "lockstep_v8": "v8"}
-    if impl != "auto":
-        if impl not in forced:
-            raise ValueError(
-                f"unknown decode impl {impl!r}; expected one of "
-                f"{DECODE_IMPLS}")
-        return forced[impl]
-    if not on_tpu:
-        return "xla"
-    if out_size > VMEM_MAX_BLOCK:
-        return "v8"                       # HBM-tape band (512 KiB-4 MiB)
-    if V7_MIN_BLOCK <= out_size <= V7_MAX_BLOCK:
-        return "v7"                       # hot-ring core band (16-128 KiB)
-    return "v6"                           # envelope edges: < 16 KiB and
-    #                                       the 132-256 KiB band (v7 loses
-    #                                       on text there — Performance.md
-    #                                       round-4 "256 KiB band")
-
-
-def select_encode_engine(block_size: int, depth: int, on_tpu: bool,
-                         impl: str = "auto") -> str:
-    """Return the encode engine name:
-    'xla' | 'enc3' | 'seg' | 'seg_big' | 'seg_splice'."""
-    if impl not in ENCODE_IMPLS:
+    direction: "encode" or "decode"."""
+    if impl in IMPLS:
+        return
+    removed = (REMOVED_ENCODE_IMPLS if direction == "encode"
+               else REMOVED_DECODE_IMPLS)
+    if impl in removed:
         raise ValueError(
-            f"unknown encode impl {impl!r}; expected one of {ENCODE_IMPLS}")
-    if impl == "xla":
-        return "xla"
-    if impl in ("enc3", "pallas"):
-        return "enc3"
-    if impl == "seg":
-        return "seg" if block_size <= 65536 else "seg_big"
-    # impl == "auto"
-    if not on_tpu:
-        return "xla"
-    if block_size > 65536:
-        return "seg_big" if seg_for(block_size) is not None else "seg_splice"
-    if 8192 <= block_size <= 65536 and block_size % 4096 == 0 and depth <= 3:
-        return "seg"
-    return "enc3"
-
-
-def encode_depth_cap(engine: str, depth: int) -> int:
-    """The depth an engine actually runs (seg engines cap at 3; the
-    host splice is greedy-only). Callers warn when cap < request."""
-    if engine in ("seg", "seg_big"):
-        return min(depth, 3)
-    if engine == "seg_splice":
-        return 1
-    if engine == "enc3":
-        return 1 if depth <= 1 else (5 if depth >= 4 else 3)
-    return depth
+            f"{direction} impl {impl!r} was a lane-lockstep Pallas engine "
+            f"and has been removed; use one of {IMPLS}")
+    raise ValueError(
+        f"unknown {direction} impl {impl!r}; expected one of {IMPLS}")

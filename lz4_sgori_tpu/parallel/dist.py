@@ -1,6 +1,6 @@
 """Sharded codec entry points and the distributed write pipeline.
 
-TPU-native equivalent of the reference's request path (lz4e_bdev/lz4e_req.c):
+Device equivalent of the reference's request path (lz4e_bdev/lz4e_req.c):
 the write pipeline compresses, decode-verifies, and accumulates stats — but
 block-parallel across a device mesh instead of synchronously inside one
 kernel thread. Collectives (the NCCL-analog, SURVEY.md §5): ``psum`` for
@@ -36,8 +36,6 @@ def compress_blocks_sharded(raw, raw_len, block_size: int, mesh: Mesh,
         in_specs=(P(axis, None), P(axis)),
         out_specs=(P(axis, None), P(axis)), check_vma=False)
     def local(r, rl):
-        # check_vma=False: pallas_call out_shapes carry no vma under
-        # shard_map (same setting as assemble_container_sharded)
         return compress_blocks_device(r, rl, block_size)
 
     return jax.jit(local)(raw, raw_len)
@@ -113,7 +111,7 @@ def stats_totals(stats):
 def initialize_multihost(coordinator_address: str | None = None,
                          num_processes: int | None = None,
                          process_id: int | None = None) -> None:
-    """Bring up cross-host DCN communication (jax.distributed). No-op when
+    """Bring up cross-host communication (jax.distributed). No-op when
     running single-process. The reference has no multi-node story; this is
     the framework's scaling path (BASELINE.md: 1 chip -> 1 host -> N hosts).
     """
@@ -139,7 +137,7 @@ def assemble_container_sharded(comp, comp_len, mesh: Mesh,
     [num_blocks], total int32) all replicated, where total_cap =
     num_blocks * slot and payload[:total] is the packed container body.
 
-    Collectives used: all_gather over ICI/DCN for sizes and the
+    Collectives used: all_gather (NCCL between GPUs) for sizes and the
     slot-padded payloads; offsets via a cross-shard exclusive scan of the
     gathered sizes. The ragged pack itself is a vectorized
     prefix-sum/searchsorted program on replicated data — O(total) work,

@@ -13,8 +13,10 @@ def make_mesh(n_devices: int | None = None, axis: str = BLOCK_AXIS) -> Mesh:
     """1-D mesh over the first `n_devices` devices.
 
     The codec has a single parallelism axis — independent blocks — so the
-    mesh is one-dimensional; within a slice XLA maps the axis onto ICI,
-    across hosts onto DCN (SURVEY.md §5 distributed-communication backend).
+    mesh is one-dimensional. The GPUs of a host reach each other all to all
+    over NVLink at one rate, so the mesh needs no other shape; XLA hands
+    its collectives to NCCL (SURVEY.md §5 distributed-communication
+    backend).
     """
     devs = jax.devices()
     if n_devices is not None:

@@ -1,4 +1,4 @@
-"""Chunk stores: the TPU-native analog of the reference's proxy block device.
+"""Chunk stores: the device-codec analog of the reference's proxy block device.
 
 The reference's lz4e_bdev stack (lz4e_bdev/lz4e_dev.c, lz4e_req.c,
 lz4e_under_dev.c) exposes /dev/lz4e0 over an underlying device: every write

@@ -3,7 +3,7 @@
 The reference's observability is printk macros (LZ4E_PR_ERR/INFO/DEBUG,
 lz4e_bdev/include/lz4e_static.h:29-38) and nothing else (SURVEY.md §5: no
 tracing). Here: standard logging with the same three levels, plus a
-jax.profiler trace context for the bench harness (the TPU-native upgrade
+jax.profiler trace context for the bench harness (the device-side upgrade
 over delegating throughput measurement to fio).
 """
 

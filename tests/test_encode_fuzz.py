@@ -1,26 +1,27 @@
-"""Encoder-side adversarial-input fuzz (round-4 verdict item 9).
+"""Encoder-side adversarial-input fuzz.
 
-Decode fuzz runs at scale (2048+512 compiled mutants); this is the
-encoder's counterpart: structured adversarial *inputs* — RLE edges,
-short periods, matches at the MFLIMIT boundary, 0xFF LSIC length
-boundaries, 64 KiB-window-straddling repeats, incompressible tails —
-through BOTH production encode engines, asserting the reference
-cross-decoder contract (lz4e_bdev/lz4e_chunk.c:119-137): liblz4 must
-decode every produced block back to the original bytes, and the
+Structured adversarial *inputs* — RLE edges, short periods, matches at the
+MFLIMIT boundary, 0xFF LSIC length boundaries, 64 KiB-window-straddling
+repeats, incompressible tails — through the device encoder, asserting the
+reference cross-decoder contract (lz4e_bdev/lz4e_chunk.c:119-137): liblz4
+must decode every produced block back to the original bytes, and the
 aggregate size must not exceed LZ4_compress_default's.
 
-The compiled TPU lane runs ~1k blocks through the seg and enc3
-engines; the default CPU lane runs a representative interpret-mode
-subset through the seg engine.
+The default lane runs one 64 KiB block of each of the 16 families, plus
+all of them in one batch for the size contract; the ``gpu`` lane runs 1024
+blocks on a card.
 """
 
 import numpy as np
 import pytest
 
+from lz4_sgori_tpu import format as F
 from lz4_sgori_tpu import golden
+from lz4_sgori_tpu.ops import compress_blocks_device
 from lz4_sgori_tpu.utils import oracle
 
 BS = 65536
+N_FAMILIES = 16
 
 
 def adversarial_blocks(n: int, block_size: int = BS, seed: int = 0):
@@ -35,7 +36,7 @@ def adversarial_blocks(n: int, block_size: int = BS, seed: int = 0):
 
     fam = 0
     while len(out) < n:
-        f = fam % 16
+        f = fam % N_FAMILIES
         fam += 1
         if f == 0:                       # all zeros (RLE offset-1)
             b = bytes(block_size)
@@ -78,7 +79,7 @@ def adversarial_blocks(n: int, block_size: int = BS, seed: int = 0):
                 block_size // 256))[:block_size]
         elif f == 13:                    # long match after long literal
             b = (rnd(4096) + (b"Q" * 4096)) * (block_size // 8192)
-        elif f == 14:                    # period straddling seg starts
+        elif f == 14:                    # period straddling 4 KiB boundaries
             b = ((b"x" * 4095) + b"Z") * (block_size // 4096)
         else:                            # mixed structured
             t = np.arange(block_size // 2, dtype=np.float32)
@@ -98,8 +99,9 @@ def _pack(blocks, block_size):
     return raw, rlen
 
 
-def _check_contract(blocks, comp, clen, label):
-    """liblz4 round-trip + per-batch size dominance."""
+def _check_roundtrip(blocks, comp, clen, label):
+    """liblz4 (golden without it) decodes every block exactly; returns the
+    aggregate compressed size and the reference encoder's."""
     comp = np.asarray(comp)
     clen = np.asarray(clen)
     total = 0
@@ -114,48 +116,50 @@ def _check_contract(blocks, comp, clen, label):
             got = golden.decompress(stream, len(b))
             lz4_total += len(golden.compress(b))
         assert got == b, f"{label}: round-trip mismatch at block {j}"
-        total += clen[j]
+        total += int(clen[j])
+    return total, lz4_total
+
+
+def _check_contract(blocks, comp, clen, label):
+    """Round trip plus per-batch size dominance."""
+    total, lz4_total = _check_roundtrip(blocks, comp, clen, label)
     assert total <= lz4_total, \
         f"{label}: aggregate size {total} > lz4 {lz4_total}"
 
 
-def test_encode_fuzz_cpu_seg_subset():
-    """Default lane: 12 adversarial 8 KiB blocks through the seg engine
-    (interpret mode)."""
-    from lz4_sgori_tpu.ops.pallas.lockstep_enc3 import (
-        compress_blocks_lockstep_seg)
-    bs = 8192
-    blocks = adversarial_blocks(12, bs, seed=3)
-    raw, rlen = _pack(blocks, bs)
-    comp, clen, err = compress_blocks_lockstep_seg(
-        raw, rlen, bs, seg=4096, interpret=True)
-    assert not np.asarray(err).any()
-    _check_contract(blocks, comp, clen, "seg-interpret")
+def _encode(blocks, block_size):
+    raw, rlen = _pack(blocks, block_size)
+    return compress_blocks_device(raw, rlen, block_size)
 
 
-@pytest.mark.tpu
-def test_encode_fuzz_tpu_scale():
-    """~1k adversarial 64 KiB blocks through BOTH production engines on
-    hardware; liblz4 round-trip + size contract per engine."""
-    from lz4_sgori_tpu.ops.pallas.lockstep_enc3 import (
-        compress_blocks_lockstep_enc3, compress_blocks_lockstep_seg)
+@pytest.mark.parametrize("family", range(N_FAMILIES))
+def test_encode_fuzz_family_roundtrips(family):
+    """One block of each family: liblz4 (or golden) decodes it exactly and
+    it fits COMPRESSBOUND."""
+    block = adversarial_blocks(N_FAMILIES, BS, seed=3)[family]
+    comp, clen = _encode([block], BS)
+    assert int(np.asarray(clen)[0]) <= F.compress_bound(len(block))
+    _check_roundtrip([block], comp, clen, f"family {family}")
 
+
+def test_encode_fuzz_aggregate_size_contract():
+    """Two blocks of every family in one batch: the aggregate compressed
+    size stays at or below LZ4_compress_default's."""
+    blocks = adversarial_blocks(2 * N_FAMILIES, BS, seed=5)
+    comp, clen = _encode(blocks, BS)
+    _check_contract(blocks, comp, clen, "xla")
+
+
+@pytest.mark.gpu
+def test_encode_fuzz_gpu_scale():
+    """1024 adversarial 64 KiB blocks on a card, in batches of 256:
+    liblz4 round trip and the aggregate size contract."""
     n = 1024
     blocks = adversarial_blocks(n, BS, seed=17)
-    raw, rlen = _pack(blocks, BS)
-    for label, fn in (
-            ("seg", lambda r, ln: compress_blocks_lockstep_seg(
-                r, ln, BS, seg=4096)),
-            ("enc3", lambda r, ln: compress_blocks_lockstep_enc3(
-                r, ln, BS)[:3])):
-        comps, clens = [], []
-        for s in range(0, n, 512):
-            comp, clen, err = fn(raw[s:s + 512], rlen[s:s + 512])
-            err = np.asarray(err)
-            # err folds to comp_len 0 upstream; here require clean runs
-            assert not err.any(), f"{label}: kernel err at slice {s}"
-            comps.append(np.asarray(comp))
-            clens.append(np.asarray(clen))
-        comp = np.concatenate(comps)
-        clen = np.concatenate(clens)
-        _check_contract(blocks, comp, clen, label)
+    comps, clens = [], []
+    for s in range(0, n, 256):
+        comp, clen = _encode(blocks[s:s + 256], BS)
+        comps.append(np.asarray(comp))
+        clens.append(np.asarray(clen))
+    _check_contract(blocks, np.concatenate(comps), np.concatenate(clens),
+                    "xla-gpu")

@@ -111,70 +111,3 @@ class TestDecodeErrors:
         bad = bytes([15 << 4, 255, 255])  # literal LSIC chain runs off the end
         with pytest.raises(golden.DecodeError):
             golden.decompress(bad, 10**6)
-
-
-class TestSegmentedParse:
-    """golden.compress_dense_seg: the enc segmented-lane oracle —
-    per-segment streams must concatenate into one valid LZ4 block."""
-
-    def test_roundtrip_fixtures(self, fixtures):
-        for name, data in fixtures.items():
-            for seg in (512, 4096):
-                c = golden.compress_dense_seg(data, seg=seg)
-                assert golden.decompress(c, len(data)) == data, (name, seg)
-
-    def test_roundtrip_boundary_sizes(self):
-        for n in (0, 1, 4, 11, 12, 13, 511, 512, 513, 515, 1024, 4095,
-                  4096, 4097, 8191):
-            data = (b"abcabcabcXYZ" * ((n // 12) + 1))[:n]
-            c = golden.compress_dense_seg(data, seg=512)
-            assert golden.decompress(c, n) == data, n
-
-    def test_parts_assembly_matches_onecall(self, fixtures):
-        data = fixtures["text_large"]
-        parts = golden.compress_dense_seg_parts(data, seg=1024)
-        c = golden.assemble_seg_parts(data, parts, 1024)
-        assert c == golden.compress_dense_seg(data, seg=1024)
-
-    def test_window_restriction_roundtrips(self, fixtures):
-        data = fixtures["text_large"] + fixtures["random_jpeg_scale"][:20000]
-        for w in (4096, 32768):
-            c = golden.compress_dense_seg(data, seg=2048, window=w)
-            assert golden.decompress(c, len(data)) == data
-
-    def test_deep_mode_roundtrips_and_helps(self, fixtures):
-        data = fixtures["text_large"]
-        c1 = golden.compress_dense_seg(data, seg=2048, depth=1)
-        c3 = golden.compress_dense_seg(data, seg=2048, depth=3)
-        assert golden.decompress(c3, len(data)) == data
-        assert len(c3) <= len(c1)
-
-    def test_deep_depth_extension(self, fixtures):
-        """depth 4/5 via the dense_gaps2 tape: roundtrips, liblz4-
-        decodable, monotone non-increasing size, and depth=3 unchanged
-        by the depth parameter (the kernel-parity contract)."""
-        data = fixtures["text_large"] + fixtures["structured"][:20000]
-        assert golden.compress_deep(data) == \
-            golden.compress_deep(data, depth=3)
-        prev = None
-        for depth in (3, 4, 5):
-            c = golden.compress_deep(data, depth=depth)
-            assert golden.decompress(c, len(data)) == data
-            if prev is not None:
-                assert len(c) <= prev
-            prev = len(c)
-
-    def test_size_overhead_vs_dense_is_small(self, fixtures):
-        data = fixtures["text_large"]
-        dense = len(golden.compress_dense(data, hashlog=16))
-        segd = len(golden.compress_dense_seg(data, seg=2048))
-        # each boundary costs a few bytes (capped match + run header)
-        nseg = -(-len(data) // 2048)
-        assert segd <= dense + 6 * nseg
-
-    @pytest.mark.skipif(not HAS_LZ4, reason="liblz4 not available")
-    def test_liblz4_decodes_segmented(self, fixtures):
-        from lz4_sgori_tpu.utils import oracle
-        for name, data in fixtures.items():
-            c = golden.compress_dense_seg(data, seg=1024)
-            assert oracle.decompress(c, len(data)) == data, name

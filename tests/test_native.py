@@ -72,8 +72,8 @@ def test_fuzz_malformed_at_scale():
     """4096 corrupted streams through the native C decoder: strict
     bidirectional error equivalence with golden.decompress (and byte
     equality on acceptance) — the host-side arm of the round-4 scaled
-    adversarial fuzz (the TPU arm lives in test_tpu_compiled.py)."""
-    from tests.test_tpu_compiled import make_mutants
+    adversarial fuzz (the device arm is tests/test_decode_fuzz.py)."""
+    from lz4_sgori_tpu.utils.mutants import make_mutants
 
     rng = np.random.default_rng(0xBEEF)
     fix = [

@@ -2,7 +2,7 @@
 
 The fake-backend analog of the reference testing against a brd ramdisk
 (test/bash_tests/test_proxy.sh:9): a virtual device mesh stands in for a
-real TPU slice; the sharding/collective program is identical."""
+set of GPUs; the sharding/collective program is identical."""
 
 import jax
 import numpy as np

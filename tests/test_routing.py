@@ -1,120 +1,64 @@
-"""Pins the ONE engine-routing table (ops/routing.py) across the full
-fio block-size envelope x depth x backend (round-4 verdict item 5).
+"""Engine selection: each direction has one engine, the XLA program.
 
-The reference has a single dispatch point (lz4e_compress.c:563-569);
-these tests guarantee the TPU analog's selections never drift from the
-documented table.
+``impl`` accepts "auto" and "xla"; the names of the removed lane-lockstep
+engines raise a ValueError that says they were removed, and nothing falls
+back to another engine or to interpret mode.
 """
 
+import numpy as np
 import pytest
 
-from lz4_sgori_tpu.ops import routing
-
-FIO_SIZES = [4096, 8192, 16384, 32768, 65536, 131072, 262144,
-             524288, 1048576, 2097152, 4194304]
+from lz4_sgori_tpu.ops import (compress_blocks_device,
+                               decompress_blocks_device, routing)
 
 
-def test_decode_auto_cpu_is_xla():
-    for n in FIO_SIZES:
-        assert routing.select_decode_engine(n, on_tpu=False) == "xla"
+@pytest.mark.parametrize("direction", ["encode", "decode"])
+@pytest.mark.parametrize("impl", ["auto", "xla"])
+def test_xla_impl_names_accepted(direction, impl):
+    routing.check_impl(impl, direction)
 
 
-def test_decode_auto_tpu_bands():
-    expect = {4096: "v6", 8192: "v6",            # < 16 KiB edge
-              16384: "v7", 32768: "v7", 65536: "v7", 131072: "v7",
-              262144: "v6",                      # 132-256 KiB band
-              524288: "v8", 1048576: "v8", 2097152: "v8",
-              4194304: "v8"}                     # HBM-tape band
-    got = {n: routing.select_decode_engine(n, on_tpu=True)
-           for n in FIO_SIZES}
-    assert got == expect
+@pytest.mark.parametrize("impl", routing.REMOVED_ENCODE_IMPLS)
+def test_removed_encode_impl_raises(impl):
+    raw = np.zeros((1, 4096), np.uint8)
+    with pytest.raises(ValueError, match="removed"):
+        compress_blocks_device(raw, np.array([4096], np.int32), 4096,
+                               impl=impl)
 
 
-def test_decode_forced_impls():
-    assert routing.select_decode_engine(65536, True, "xla") == "xla"
-    assert routing.select_decode_engine(65536, True, "lockstep_v6") == "v6"
-    assert routing.select_decode_engine(65536, True, "lockstep") == "v7"
-    assert routing.select_decode_engine(65536, True, "lockstep_v7") == "v7"
-    assert routing.select_decode_engine(65536, True, "lockstep_v8") == "v8"
+@pytest.mark.parametrize("impl", routing.REMOVED_DECODE_IMPLS)
+def test_removed_decode_impl_raises(impl):
+    comp = np.zeros((1, 64), np.uint8)
+    with pytest.raises(ValueError, match="removed"):
+        decompress_blocks_device(comp, np.array([1], np.int32), 4096,
+                                 impl=impl)
 
 
-def test_decode_unknown_impl_raises():
-    with pytest.raises(ValueError, match="unknown decode impl"):
-        routing.select_decode_engine(65536, True, "scalar")
+@pytest.mark.parametrize("direction", ["encode", "decode"])
+def test_unknown_impl_raises(direction):
+    # "scalar" was a retired round-1 kernel: it must error, not reroute
+    with pytest.raises(ValueError, match="unknown"):
+        routing.check_impl("scalar", direction)
 
 
-def test_encode_auto_cpu_is_xla():
-    for n in FIO_SIZES:
-        for d in (1, 3, 5):
-            assert routing.select_encode_engine(n, d, on_tpu=False) == "xla"
-
-
-def test_encode_auto_tpu_bands():
-    # depth 1 and 3: seg engines cover 8 KiB-4 MiB; enc3 takes < 8 KiB
-    for d in (1, 3):
-        expect = {4096: "enc3",
-                  8192: "seg", 16384: "seg", 32768: "seg", 65536: "seg",
-                  131072: "seg_big", 262144: "seg_big", 524288: "seg_big",
-                  1048576: "seg_big", 2097152: "seg_big",
-                  4194304: "seg_big"}
-        got = {n: routing.select_encode_engine(n, d, on_tpu=True)
-               for n in FIO_SIZES}
-        assert got == expect, f"depth {d}"
-    # depth 5: block-per-lane enc3 owns <= 64 KiB (the only engine with
-    # the gaps2 tape); big blocks stay seg_big at their depth cap
-    expect5 = {4096: "enc3", 8192: "enc3", 16384: "enc3", 32768: "enc3",
-               65536: "enc3",
-               131072: "seg_big", 262144: "seg_big", 524288: "seg_big",
-               1048576: "seg_big", 2097152: "seg_big", 4194304: "seg_big"}
-    got5 = {n: routing.select_encode_engine(n, 5, on_tpu=True)
-            for n in FIO_SIZES}
-    assert got5 == expect5
-
-
-def test_encode_non_multiple_big_block_is_host_splice():
-    assert routing.select_encode_engine(96 * 1024, 1, True) == "seg_splice"
-    assert routing.select_encode_engine(65536 + 4096, 1, True) == \
-        "seg_splice"
-
-
-def test_encode_depth_caps():
-    assert routing.encode_depth_cap("seg", 5) == 3
-    assert routing.encode_depth_cap("seg_big", 5) == 3
-    assert routing.encode_depth_cap("seg_splice", 3) == 1
-    assert routing.encode_depth_cap("enc3", 2) == 3
-    assert routing.encode_depth_cap("enc3", 4) == 5
-    assert routing.encode_depth_cap("enc3", 1) == 1
-    assert routing.encode_depth_cap("xla", 6) == 6
-
-
-def test_encode_unknown_impl_raises():
-    # "scalar" was the retired round-1 kernel: must error, not silently
-    # reroute (round-4 advisor item 3)
+def test_removed_names_are_direction_specific():
+    # a decode engine's name is unknown to the encoder, and vice versa
     with pytest.raises(ValueError, match="unknown encode impl"):
-        routing.select_encode_engine(65536, 1, True, "scalar")
+        routing.check_impl("lockstep_v7", "encode")
+    with pytest.raises(ValueError, match="unknown decode impl"):
+        routing.check_impl("enc3", "decode")
 
 
-def test_encode_depth_cap_warns_end_to_end(monkeypatch):
-    """match_depth=5 on the seg path must warn, not silently degrade
-    (round-4 advisor item 2)."""
-    import numpy as np
-
-    from lz4_sgori_tpu.ops import encode as enc
-
-    seen = {}
-
-    def fake_seg_dispatch(raw, raw_len, block_size, acceleration=1,
-                          depth=1, seg=4096, return_nseq=False):
-        seen["depth"] = depth
-        comp = np.zeros((raw.shape[0], 32), np.uint8)
-        cl = np.zeros(raw.shape[0], np.int32)
-        return (comp, cl, cl) if return_nseq else (comp, cl)
-
-    monkeypatch.setattr(enc, "compress_blocks_seg_dispatch",
-                        fake_seg_dispatch)
-    raw = np.zeros((1, 8192), np.uint8)
-    rl = np.array([8192], np.int32)
-    with pytest.warns(UserWarning, match="depth cap"):
-        enc.compress_blocks_device(raw, rl, 8192, match_depth=5,
-                                   impl="seg")
-    assert seen["depth"] == 3
+def test_forced_xla_matches_auto():
+    raw = np.zeros((2, 4096), np.uint8)
+    raw[0, :100] = np.arange(100) % 7
+    rl = np.array([4096, 100], np.int32)
+    ca, la = compress_blocks_device(raw, rl, 4096)
+    cx, lx = compress_blocks_device(raw, rl, 4096, impl="xla")
+    assert (np.asarray(la) == np.asarray(lx)).all()
+    assert (np.asarray(ca) == np.asarray(cx)).all()
+    slot = np.pad(np.asarray(ca), ((0, 0), (0, 8)))
+    oa = decompress_blocks_device(slot, la, 4096)
+    ox = decompress_blocks_device(slot, la, 4096, impl="xla")
+    for a, b in zip(oa, ox):
+        assert (np.asarray(a) == np.asarray(b)).all()
